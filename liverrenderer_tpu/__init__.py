@@ -1,50 +1,37 @@
-"""liverrenderer_tpu — a TPU-native differentiable renderer.
+"""The package's former import name, kept so that existing scripts run.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of
-mmigas/LiverRenderer (a Mitsuba 3 fork specialized for biophysical liver
-rendering): wavefront path tracing, volumetric transport with the layered
-liver media, learned subsurface scattering, and radiative-backprop
-differentiable rendering — built on SoA scene pytrees, jit/scan wavefront
-loops, and jax.sharding for multi-chip scaling.
-
-Facade mirrors the pieces of the `mitsuba` Python API the liver pipeline
-uses: load_dict / load_file / render / cornell_box / traverse / Bitmap-ish IO.
+Importing it, or any module under it, returns the module of the same path
+under `liverrenderer`: one module object answers to both names, so classes,
+jit caches and registered pytrees are shared.
 """
+import importlib
+import importlib.abc
+import importlib.util
+import sys
 
-import jax as _jax
+import liverrenderer as _target
 
-# Geometry math must be true fp32: TPU matmuls default to bf16 MXU passes,
-# which quantizes camera-ray directions (sensor/perspective.py `d_cam @
-# R.T`) to an 8-bit mantissa and shifts every silhouette by up to a pixel
-# (found round 4: Liver-MultiMesh TPU-vs-CPU diff was exactly the 1-px
-# silhouette ring, rmse-vs-golden 0.0495 -> 0.002 with this setting).
-# The few matmuls in this renderer are tiny (3x3 frames, 64-wide VAE
-# MLPs); MXU bf16 buys nothing here.
-_jax.config.update("jax_default_matmul_precision", "highest")
+_PREFIX = __name__ + "."
 
-from .scene.builder import load_dict
-from .scene.cornell import cornell_box
-from .scene.transform import Transform
-from .scene.xml import load_file
-from .integrators.common import render
-from .integrators.regen import RenderControl
-from .integrators.prb import render_grad, render_fwd_grad
-from .integrators.aux import (render_aovs, render_depth, render_direct,
-                              render_moments)
-from .integrators.ptracer import render_ptracer
-from .integrators.spectral import render_specfilm
-from .integrators.stokes import render_stokes
-from .util import traverse, apply_params, SceneParameters
-from .largesteps import LargeSteps
-from .io.image import read_image, write_image
 
-__version__ = "0.1.0"
+class _AliasFinder(importlib.abc.MetaPathFinder, importlib.abc.Loader):
+    """Resolves `<old name>.x.y` to the already-importable `liverrenderer.x.y`."""
 
-__all__ = [
-    "load_dict", "load_file", "cornell_box", "Transform", "render",
-    "render_grad", "render_fwd_grad", "render_aovs", "render_depth",
-    "render_direct", "render_moments", "render_ptracer", "render_stokes",
-    "traverse",
-    "apply_params", "SceneParameters", "LargeSteps", "read_image",
-    "write_image",
-]
+    def find_spec(self, fullname, path=None, target=None):
+        if fullname.startswith(_PREFIX):
+            return importlib.util.spec_from_loader(fullname, self)
+        return None
+
+    def create_module(self, spec):
+        module = importlib.import_module(
+            _target.__name__ + "." + spec.name[len(_PREFIX):])
+        spec.loader_state = module.__spec__
+        return module
+
+    def exec_module(self, module):
+        # the import system stamped the alias spec on the shared module
+        module.__spec__ = module.__spec__.loader_state
+
+
+sys.meta_path.insert(0, _AliasFinder())
+sys.modules[__name__] = _target

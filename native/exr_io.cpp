@@ -1,7 +1,7 @@
-// Native EXR IO for liverrenderer_tpu.
+// Native EXR IO for liverrenderer.
 //
 // The reference handles image IO in C++ (src/core/bitmap.cpp, 2562 LoC, via
-// ext/openexr).  We do the same the TPU-framework way: a thin extern-"C"
+// ext/openexr).  We do the same with a thin extern-"C"
 // bridge over the system OpenEXR that numpy can call through ctypes, reading
 // any scanline EXR (PIZ/ZIP/ZIPS/RLE/PXR24/...) into interleaved float32 and
 // writing float32 back out with ZIP compression.

@@ -10,8 +10,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import liverrenderer_tpu as lr
-from liverrenderer_tpu.scene.builder import load_dict
+import liverrenderer as lr
+from liverrenderer.scene.builder import load_dict
 
 
 def _box_scene(albedo=0.6, radiance=5.0):

@@ -16,8 +16,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import liverrenderer_tpu as lr
-from liverrenderer_tpu.scene.builder import load_dict
+import liverrenderer as lr
+from liverrenderer.scene.builder import load_dict
 
 
 def _plane_light_scene(extra=None, integrator="path", max_depth=3,
@@ -63,19 +63,23 @@ class Cfg:
 
 
 def _bio_scene():
-    xml = ("/root/reference/scenes/SphereLiverConstEnv/mitsuba3/scene.xml")
-    return lr.load_file(xml, res_width=12, res_height=8, spp=8,
-                        max_depth=6, integrator="biovolpath")
+    from liverrenderer.scene.synthetic import liver_standin
+    return lr.load_dict(liver_standin(seed=0, width=12, height=8, spp=8,
+                                      max_depth=6))
 
 
 def _checker_scene():
-    """The liver floor checkerboard under stock volpath — texture
-    gradients through a real scene (theta-independent sampling, so
-    correlated FD is a tight oracle)."""
-    xml = ("/root/reference/scenes/SphereLiverConstEnv/mitsuba3/scene.xml")
-    return lr.load_file(xml, res_width=12, res_height=8, spp=8,
-                        max_depth=4)
+    """The liver stand-in's checkerboard floor under stock volpath —
+    texture gradients through a liver scene (theta-independent sampling,
+    so correlated FD is a tight oracle)."""
+    from liverrenderer.scene.synthetic import liver_standin
+    return lr.load_dict(liver_standin(seed=0, width=12, height=8, spp=8,
+                                      max_depth=4, integrator="volpath"))
 
+
+# blood absorption (green channel, its strongest) in the packed `liver`
+# medium row
+BLOOD = 41
 
 CONFIGS = [
     # diffuse albedo (reference DiffuseAlbedoConfig, bwd thr 5e-4)
@@ -114,9 +118,9 @@ CONFIGS = [
                              "albedo": {"type": "rgb",
                                         "value": [0.5] * 3}}}}),
         "media.params", spp=64, tol=2e-2),
-    # checkerboard texture reflectance on the real liver-scene floor
-    # (multi-bounce through the dielectric ball -> mildly nonlinear in
-    # the albedo; calibrated 3.9% @ spp 32)
+    # checkerboard texture reflectance on the liver stand-in's floor
+    # (multi-bounce through the dielectric liver -> mildly nonlinear in
+    # the albedo)
     Cfg("checker_texture", _checker_scene, "textures.data", tol=6e-2),
 ]
 
@@ -179,4 +183,4 @@ def test_bio_score_function_fwd_bwd_consistency():
     for seed in (3, 11):
         _, g, _ = lr.render_grad(scene, params, loss_fn, spp=128,
                                  seed=seed)
-        assert float(np.asarray(g["media.params"])[0, 12]) < 0
+        assert float(np.asarray(g["media.params"])[0, BLOOD]) < 0

@@ -10,12 +10,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import liverrenderer_tpu as lr
-from liverrenderer_tpu.accel.intersect import ray_intersect
-from liverrenderer_tpu.bsdf.dispatch import bsdf_eval_pdf, bsdf_sample
-from liverrenderer_tpu.core.types import Ray
-from liverrenderer_tpu.scene.ir import F_NULL
-from liverrenderer_tpu.testutil import chi2_test_sphere
+import liverrenderer as lr
+from liverrenderer.accel.intersect import ray_intersect
+from liverrenderer.bsdf.dispatch import bsdf_eval_pdf, bsdf_sample
+from liverrenderer.core.types import Ray
+from liverrenderer.scene.ir import F_NULL
+from liverrenderer.testutil import chi2_test_sphere
 
 WI = jnp.asarray(np.array([0.35, -0.15, 0.93]) /
                  np.linalg.norm([0.35, -0.15, 0.93]), jnp.float32)

@@ -4,10 +4,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from liverrenderer_tpu.core import warp
-from liverrenderer_tpu.phase.dispatch import phase_eval, phase_sample
-from liverrenderer_tpu.scene.ir import PHASE_HG, PHASE_ISOTROPIC
-from liverrenderer_tpu.testutil import chi2_test_sphere
+from liverrenderer.core import warp
+from liverrenderer.phase.dispatch import phase_eval, phase_sample
+from liverrenderer.scene.ir import PHASE_HG, PHASE_ISOTROPIC
+from liverrenderer.testutil import chi2_test_sphere
 
 
 def test_uniform_sphere_chi2():
@@ -57,10 +57,10 @@ def test_chi2_catches_wrong_pdf():
 
 def test_diffuse_bsdf_chi2():
     """Diffuse BSDF sampling vs its eval/pdf (src/bsdfs/tests analog)."""
-    import liverrenderer_tpu as lr
-    from liverrenderer_tpu.accel.intersect import ray_intersect
-    from liverrenderer_tpu.bsdf.dispatch import bsdf_eval_pdf, bsdf_sample
-    from liverrenderer_tpu.core.types import Ray
+    import liverrenderer as lr
+    from liverrenderer.accel.intersect import ray_intersect
+    from liverrenderer.bsdf.dispatch import bsdf_eval_pdf, bsdf_sample
+    from liverrenderer.core.types import Ray
 
     d = lr.cornell_box()
     scene = lr.load_dict(d)
@@ -96,10 +96,10 @@ def test_diffuse_bsdf_chi2():
                                             (0.5, 0.6)])
 def test_principled_bsdf_chi2(metallic, rough):
     """Principled BSDF sample/eval-pdf consistency."""
-    import liverrenderer_tpu as lr
-    from liverrenderer_tpu.accel.intersect import ray_intersect
-    from liverrenderer_tpu.bsdf.dispatch import bsdf_eval_pdf, bsdf_sample
-    from liverrenderer_tpu.core.types import Ray
+    import liverrenderer as lr
+    from liverrenderer.accel.intersect import ray_intersect
+    from liverrenderer.bsdf.dispatch import bsdf_eval_pdf, bsdf_sample
+    from liverrenderer.core.types import Ray
 
     d = lr.cornell_box()
     d["floor_override"] = None
@@ -148,7 +148,7 @@ def test_principled_bsdf_chi2(metallic, rough):
 @pytest.mark.parametrize("beta_m,beta_n", [(0.3, 0.3), (0.6, 0.2)])
 def test_hair_bsdf_chi2(beta_m, beta_n):
     """Hair fiber sampling vs pdf (src/bsdfs/hair.cpp capability)."""
-    from liverrenderer_tpu.bsdf.hair import hair_eval_pdf, hair_sample
+    from liverrenderer.bsdf.hair import hair_eval_pdf, hair_sample
 
     wi = jnp.array([0.35, 0.2, 0.91])
     wi = wi / jnp.linalg.norm(wi)
@@ -196,7 +196,7 @@ def _phase_chi2(ptype_code, prm_row, g=0.0, subdiv=16):
 
 
 def test_blendphase_chi2():
-    from liverrenderer_tpu.scene.ir import PHASE_BLEND, PHASE_HG, \
+    from liverrenderer.scene.ir import PHASE_BLEND, PHASE_HG, \
         PHASE_ISOTROPIC
     prm = jnp.zeros(48).at[11].set(0.35).at[12].set(PHASE_HG) \
         .at[13].set(0.6).at[14].set(PHASE_ISOTROPIC)
@@ -205,7 +205,7 @@ def test_blendphase_chi2():
 
 
 def test_tabphase_chi2():
-    from liverrenderer_tpu.scene.ir import PHASE_TAB
+    from liverrenderer.scene.ir import PHASE_TAB
     vals = np.linspace(0.2, 2.0, 32) ** 2
     prm = jnp.zeros(48).at[16:48].set(jnp.asarray(vals, jnp.float32))
     ok, p, stat, dof = _phase_chi2(PHASE_TAB, prm)
@@ -213,7 +213,7 @@ def test_tabphase_chi2():
 
 
 def test_sggx_phase_chi2():
-    from liverrenderer_tpu.scene.ir import PHASE_SGGX
+    from liverrenderer.scene.ir import PHASE_SGGX
     # anisotropic fiber-like S
     prm = jnp.zeros(48).at[16].set(1.0).at[17].set(0.25).at[18].set(0.6) \
         .at[19].set(0.1)

@@ -6,8 +6,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import liverrenderer_tpu as lr
-from liverrenderer_tpu.core import rng
+import liverrenderer as lr
+from liverrenderer.core import rng
 
 
 # ---------------------------- samplers ------------------------------------
@@ -111,7 +111,7 @@ def test_orthographic_renders():
 # ---------------------------- spectra -------------------------------------
 
 def test_blackbody_hue():
-    from liverrenderer_tpu.core.spectrum import blackbody_rgb
+    from liverrenderer.core.spectrum import blackbody_rgb
     warm = blackbody_rgb(2000.0)
     cool = blackbody_rgb(10000.0)
     assert warm[0] > warm[2] * 2          # 2000 K is strongly red
@@ -119,7 +119,7 @@ def test_blackbody_hue():
 
 
 def test_flat_spd_is_whiteish():
-    from liverrenderer_tpu.core.spectrum import spd_to_rgb
+    from liverrenderer.core.spectrum import spd_to_rgb
     rgb = spd_to_rgb(np.linspace(380, 730, 10), np.ones(10))
     assert rgb.max() / max(rgb.min(), 1e-6) < 1.6
 
@@ -164,7 +164,7 @@ def test_serialized_mesh_roundtrip(tmp_path):
     import struct
     import zlib
 
-    from liverrenderer_tpu.scene.meshio import load_mesh
+    from liverrenderer.scene.meshio import load_mesh
 
     verts = np.array([[0, 0, 0], [1, 0, 0], [0, 1, 0], [1, 1, 0]],
                      np.float32)
@@ -195,7 +195,7 @@ def test_merge_shape_container():
     """merge shape: children flattened into the scene (merge.cpp)."""
     import numpy as np
 
-    import liverrenderer_tpu as lr
+    import liverrenderer as lr
     scene = lr.load_dict({
         "type": "scene",
         "integrator": {"type": "path", "max_depth": 2},
@@ -224,7 +224,7 @@ def test_bump_and_normal_map_perturb_shading():
     normalmap.cpp) — including when attached via a named ref."""
     import numpy as np
 
-    import liverrenderer_tpu as lr
+    import liverrenderer as lr
 
     h = np.zeros((16, 16), np.float32)
     h[::2, :] = 1.0                       # strong horizontal stripes
@@ -264,7 +264,7 @@ def test_mesh_attribute_texture():
     interpolate across the face."""
     import numpy as np
 
-    import liverrenderer_tpu as lr
+    import liverrenderer as lr
     v = np.array([[-1, -1, 0], [1, -1, 0], [1, 1, 0], [-1, 1, 0]],
                  np.float32)
     f = np.array([[0, 1, 2], [0, 2, 3]], np.int32)
@@ -298,7 +298,7 @@ def test_volume_texture():
     """3D grid texture sampled at the hit position (volume texture)."""
     import numpy as np
 
-    import liverrenderer_tpu as lr
+    import liverrenderer as lr
     g = np.zeros((2, 2, 2, 3), np.float32)
     g[..., 0] = 1.0            # red everywhere
     g[:, :, 1, 1] = 1.0        # +x half becomes yellow
@@ -331,7 +331,7 @@ def test_xml_matrix_comma_separators(tmp_path):
     (parser.cpp tokenization; SphereLiverPoint/sss/scene.xml uses commas)."""
     import numpy as np
 
-    import liverrenderer_tpu as lr
+    import liverrenderer as lr
     xml = """<scene version="3.0.0">
       <integrator type="path"/>
       <sensor type="perspective">
@@ -361,7 +361,7 @@ def test_device_trace_captures_profile(tmp_path):
     (profiler.h ScopedPhase -> hardware-level xprof capture)."""
     import jax.numpy as jnp
 
-    from liverrenderer_tpu.log import device_trace, scoped_phase
+    from liverrenderer.log import device_trace, scoped_phase
 
     out = str(tmp_path / "trace")
     with device_trace(out):

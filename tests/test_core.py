@@ -4,10 +4,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from liverrenderer_tpu.core import fresnel as fr
-from liverrenderer_tpu.core import math as lm
-from liverrenderer_tpu.core import rng, warp
-from liverrenderer_tpu.core.distr import DiscreteDistribution, Distribution2D
+from liverrenderer.core import fresnel as fr
+from liverrenderer.core import math as lm
+from liverrenderer.core import rng, warp
+from liverrenderer.core.distr import DiscreteDistribution, Distribution2D
 
 
 def test_rng_uniform():
@@ -111,7 +111,7 @@ def test_distribution2d():
 
 
 def test_exr_roundtrip(tmp_path):
-    from liverrenderer_tpu.io.exr import read_exr, write_exr
+    from liverrenderer.io.exr import read_exr, write_exr
     img = np.random.default_rng(1).random((37, 53, 3)).astype(np.float32)
     p = str(tmp_path / "t.exr")
     write_exr(p, img, half=False)
@@ -123,7 +123,7 @@ def test_exr_roundtrip(tmp_path):
 
 
 def test_png_roundtrip(tmp_path):
-    from liverrenderer_tpu.io.image import read_image, write_image
+    from liverrenderer.io.image import read_image, write_image
     img = np.random.default_rng(2).random((16, 16, 3)).astype(np.float32)
     p = str(tmp_path / "t.png")
     write_image(p, img)

@@ -3,7 +3,7 @@ src/shapes/{linearcurve,bsplinecurve}.cpp + src/bsdfs/hair.cpp)."""
 import numpy as np
 import pytest
 
-import liverrenderer_tpu as lr
+import liverrenderer as lr
 
 
 def _curve_scene(shape, spp_film=24):
@@ -72,8 +72,8 @@ def test_hair_on_curve_absorption():
 def test_tangent_frames_on_tube():
     """Shading frame s-axis equals the fiber direction on a curve hit."""
     import jax.numpy as jnp
-    from liverrenderer_tpu.accel.intersect import ray_intersect
-    from liverrenderer_tpu.core.types import Ray
+    from liverrenderer.accel.intersect import ray_intersect
+    from liverrenderer.core.types import Ray
 
     scene = _curve_scene({
         "type": "linearcurve",

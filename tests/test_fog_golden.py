@@ -25,7 +25,7 @@ import os
 import numpy as np
 import pytest
 
-import liverrenderer_tpu as lr
+import liverrenderer as lr
 
 GOLDEN = "/root/reference/cornell_box_1080x1080_fog_st_albedo.png"
 

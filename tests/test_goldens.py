@@ -11,7 +11,7 @@ import os
 import numpy as np
 import pytest
 
-import liverrenderer_tpu as lr
+import liverrenderer as lr
 
 GOLDEN = "/root/reference/cornell_box.exr"
 

@@ -5,7 +5,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-import liverrenderer_tpu as lr
+import liverrenderer as lr
 
 
 def _grid_scene(density_scale=1.0, res=8):

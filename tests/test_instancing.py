@@ -13,9 +13,9 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-import liverrenderer_tpu as lr
-from liverrenderer_tpu.core.types import Ray
-from liverrenderer_tpu.accel.intersect import ray_intersect
+import liverrenderer as lr
+from liverrenderer.core.types import Ray
+from liverrenderer.accel.intersect import ray_intersect
 
 
 def _scene_dict(n_inst=3, light="point"):
@@ -101,7 +101,7 @@ def _primary_rays(scene, n=24):
                          np.linspace(0.1, 0.9, n), indexing="ij")
     pos = np.stack([xs.ravel() * scene.film_w,
                     ys.ravel() * scene.film_h], -1).astype(np.float32)
-    from liverrenderer_tpu.sensor.perspective import sample_ray
+    from liverrenderer.sensor.perspective import sample_ray
     return sample_ray(scene, jnp.asarray(pos))
 
 

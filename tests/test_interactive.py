@@ -2,8 +2,8 @@
 accumulation restart on movement, and the ANSI framebuffer blit."""
 import numpy as np
 
-import liverrenderer_tpu as lr
-from liverrenderer_tpu.interactive import FlyCamera, blit_ansi, \
+import liverrenderer as lr
+from liverrenderer.interactive import FlyCamera, blit_ansi, \
     run_interactive
 
 

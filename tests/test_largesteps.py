@@ -2,8 +2,8 @@
 import jax.numpy as jnp
 import numpy as np
 
-import liverrenderer_tpu as lr
-from liverrenderer_tpu.scene import geometry as geo
+import liverrenderer as lr
+from liverrenderer.scene import geometry as geo
 
 
 def _mesh():

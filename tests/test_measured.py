@@ -4,10 +4,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import liverrenderer_tpu as lr
-from liverrenderer_tpu.bsdf.measured import (MeasuredData, load_tensor_file,
+import liverrenderer as lr
+from liverrenderer.bsdf.measured import (MeasuredData, load_tensor_file,
                                              write_tensor_file)
-from liverrenderer_tpu.testutil import chi2_test_sphere
+from liverrenderer.testutil import chi2_test_sphere
 
 
 def _synthetic_bsdf(path, S=6, H=16, W=16):
@@ -56,7 +56,7 @@ def test_warp_sample_histogram(tmp_path):
     (the Marginal2D-equivalent machinery; a sphere-space chi2 is not used
     because the half-vector map's 1/u_theta singularity at the mirror
     direction defeats fixed-grid cell quadrature)."""
-    from liverrenderer_tpu.bsdf.measured import (_build_warp, _warp_invert,
+    from liverrenderer.bsdf.measured import (_build_warp, _warp_invert,
                                                  _warp_sample)
     rng = np.random.default_rng(0)
     S, H, W = 4, 8, 8
@@ -118,7 +118,7 @@ def test_measured_angle_jacobian_fd(tmp_path):
 
 
 def test_measured_sample_weight_consistency(tmp_path):
-    from liverrenderer_tpu.bsdf.measured import (as_device_table,
+    from liverrenderer.bsdf.measured import (as_device_table,
                                                  measured_eval_pdf,
                                                  measured_sample)
     p = str(tmp_path / "m.bsdf")

@@ -5,9 +5,12 @@ import os
 import numpy as np
 import pytest
 
-import liverrenderer_tpu as lr
-from liverrenderer_tpu.parallel.mesh import (make_mesh, render_sharded,
-                                             render_tiled)
+import liverrenderer as lr
+from liverrenderer.parallel.mesh import (make_mesh, render_sharded,
+                                         render_tiled)
+
+# the checkout this test file belongs to: the worker processes import from it
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 @pytest.fixture(scope="module")
@@ -49,7 +52,7 @@ def test_pixel_tiled_interleaved_matches_contiguous(scene):
 
 @pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 virtual devices")
 def test_measure_scaling_smoke(scene):
-    from liverrenderer_tpu.parallel.mesh import measure_scaling
+    from liverrenderer.parallel.mesh import measure_scaling
     stats = measure_scaling(scene, 8, spp=8, reps=1)
     assert stats["n_devices"] == 8
     key = ("efficiency_proxy" if "efficiency_proxy" in stats
@@ -61,7 +64,7 @@ def test_checkpoint_roundtrip(tmp_path):
     import jax.numpy as jnp
     import optax
 
-    from liverrenderer_tpu.checkpoint import OptimizationCheckpointer
+    from liverrenderer.checkpoint import OptimizationCheckpointer
     params = {"a": jnp.arange(4.0), "b": jnp.ones((2, 3)) * 2}
     opt = optax.adam(0.1)
     st = opt.init(params)
@@ -83,7 +86,7 @@ def test_collective_stats_counts_psums(scene):
     import jax.numpy as jnp
     import optax
 
-    from liverrenderer_tpu.parallel.mesh import (collective_stats,
+    from liverrenderer.parallel.mesh import (collective_stats,
                                                  make_train_step)
     mesh = make_mesh(min(8, len(jax.devices())))
     params = {"textures.data": scene.textures.data}
@@ -105,7 +108,7 @@ import sys
 import jax
 import os
 jax.config.update("jax_platforms", "cpu")
-from liverrenderer_tpu.parallel.mesh import init_distributed
+from liverrenderer.parallel.mesh import init_distributed
 pid = int(sys.argv[1])
 init_distributed("127.0.0.1:{port}", num_processes=2, process_id=pid)
 assert jax.process_count() == 2, jax.process_count()
@@ -139,7 +142,7 @@ def test_init_distributed_two_process_smoke(tmp_path):
     script.write_text(_DIST_WORKER.format(port=port))
     env = dict(os.environ, JAX_PLATFORMS="cpu",
                XLA_FLAGS="--xla_force_host_platform_device_count=2",
-               PYTHONPATH="/root/repo:" + os.environ.get("PYTHONPATH", ""))
+               PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
     procs = [subprocess.Popen([sys.executable, str(script), str(i)],
                               stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True, env=env)
@@ -179,8 +182,8 @@ def fog_scene():
 def test_sharded_regen_matches_single(fog_scene):
     """The sample-sharded regen wavefront psums to the single-device regen
     accumulator exactly (same counter RNG per global (pixel, sample))."""
-    from liverrenderer_tpu.integrators import regen
-    from liverrenderer_tpu.parallel.mesh import render_regen_sharded
+    from liverrenderer.integrators import regen
+    from liverrenderer.parallel.mesh import render_regen_sharded
     mesh = make_mesh(8)
     ref = np.asarray(regen.render_regen(fog_scene, 0, 16))
     got = np.asarray(render_regen_sharded(fog_scene, mesh, spp=16, seed=0))
@@ -191,8 +194,8 @@ def test_sharded_regen_matches_single(fog_scene):
 def test_sharded_regen_ragged_spp(fog_scene):
     """spp not divisible by the device count: the remainder runs masked
     1-sample chunks — no assert, no padding error, identical image."""
-    from liverrenderer_tpu.integrators import regen
-    from liverrenderer_tpu.parallel.mesh import render_regen_sharded
+    from liverrenderer.integrators import regen
+    from liverrenderer.parallel.mesh import render_regen_sharded
     mesh = make_mesh(8)
     ref = np.asarray(regen.render_regen(fog_scene, 0, 13))
     got = np.asarray(render_regen_sharded(fog_scene, mesh, spp=13, seed=0))
@@ -204,8 +207,8 @@ def test_sharded_replay_matches_single(fog_scene):
     """The sharded replay adjoint psums per-device walk gradients to the
     single-device replay gradients (media sigma_t of the fog volume)."""
     import jax.numpy as jnp
-    from liverrenderer_tpu.integrators import prb_replay
-    from liverrenderer_tpu.parallel.mesh import render_grad_replay_sharded
+    from liverrenderer.integrators import prb_replay
+    from liverrenderer.parallel.mesh import render_grad_replay_sharded
     mesh = make_mesh(8)
     params = {"media.params": fog_scene.media.params}
 
@@ -231,7 +234,7 @@ def test_sharded_replay_collectives(fog_scene):
     import functools
     import jax.numpy as jnp
     from jax.sharding import PartitionSpec as P
-    from liverrenderer_tpu.parallel.mesh import (AXIS, _local_replay_grad,
+    from liverrenderer.parallel.mesh import (AXIS, _local_replay_grad,
                                                  collective_stats)
     mesh = make_mesh(8)
     params = {"media.params": fog_scene.media.params}
@@ -254,8 +257,8 @@ def test_sharded_replay_ragged_spp(fog_scene):
     """spp % n_dev != 0: the remainder walks as one masked 1-sample round
     on the first r devices — gradients equal the single-device replay."""
     import jax.numpy as jnp
-    from liverrenderer_tpu.integrators import prb_replay
-    from liverrenderer_tpu.parallel.mesh import render_grad_replay_sharded
+    from liverrenderer.integrators import prb_replay
+    from liverrenderer.parallel.mesh import render_grad_replay_sharded
     mesh = make_mesh(8)
     params = {"media.params": fog_scene.media.params}
 
@@ -279,8 +282,8 @@ def test_sharded_spectral_regen_and_replay(fog_scene):
     shard_map programs unchanged.  Both the psum'd film and the psum'd
     gradients must equal the single-device fast paths."""
     import jax.numpy as jnp
-    from liverrenderer_tpu.integrators import prb_replay, regen
-    from liverrenderer_tpu.parallel.mesh import (render_grad_replay_sharded,
+    from liverrenderer.integrators import prb_replay, regen
+    from liverrenderer.parallel.mesh import (render_grad_replay_sharded,
                                                  render_regen_sharded)
     d = lr.cornell_box()
     d["integrator"] = {"type": "volpath", "max_depth": 3}

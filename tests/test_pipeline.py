@@ -7,13 +7,15 @@ import sys
 import numpy as np
 import pytest
 
+# the checkout this test file belongs to: the CLI subprocess imports from it
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 REF = "/root/reference"
 HAVE_REF = os.path.isdir(os.path.join(REF, "liver", "data"))
 
 
 @pytest.mark.skipif(not HAVE_REF, reason="reference data not mounted")
 def test_mie_against_wiscombe():
-    from liverrenderer_tpu.pipeline.medium_models import mie_qsca
+    from liverrenderer.pipeline.medium_models import mie_qsca
     assert abs(mie_qsca(1.5, 10.0) - 2.8820) < 1e-3
     m, x = 1.2, 0.01
     ray = 8 / 3 * x ** 4 * abs((m * m - 1) / (m * m + 2)) ** 2
@@ -25,7 +27,7 @@ def test_prepare_medium_matches_baked_scene():
     """Computed coefficients must reproduce the sigma_* values baked into
     scenes/Liver-SingleMesh/mitsuba3/scene.xml (collagen/elastin/
     hepatocyte; blood with the generation-time vf=0.002)."""
-    from liverrenderer_tpu.pipeline.prepare_medium import (
+    from liverrenderer.pipeline.prepare_medium import (
         compute_coefficients)
     c = compute_coefficients()
     assert abs(c["sigma_collagen1_R"] - 3.146124563777685) / 3.146 < 0.01
@@ -44,7 +46,7 @@ def test_prepare_medium_matches_baked_scene():
 
 
 def test_rmse_ssim_metrics():
-    from liverrenderer_tpu.pipeline.results import rmse, ssim
+    from liverrenderer.pipeline.results import rmse, ssim
     rng = np.random.default_rng(1)
     a = rng.random((64, 64, 3)).astype(np.float32)
     assert rmse(a, a) == 0.0
@@ -90,14 +92,14 @@ def test_cli_renders_cornell(tmp_path):
     r = subprocess.run(
         [sys.executable, "-c",
          "import jax; jax.config.update('jax_platforms','cpu');"
-         "from liverrenderer_tpu.cli import main; import sys;"
+         "from liverrenderer.cli import main; import sys;"
          f"sys.exit(main(['{xml}', '-o', '{out}']))"],
-        capture_output=True, text=True, env=env, cwd="/root/repo",
+        capture_output=True, text=True, env=env, cwd=ROOT,
         timeout=600)
     assert r.returncode == 0, r.stderr[-2000:]
     assert out.exists()
     assert (tmp_path / "time.txt").exists()
-    import liverrenderer_tpu as lr
+    import liverrenderer as lr
     img = lr.read_image(str(out))
     assert np.isfinite(img).all() and img.mean() > 0.01
 
@@ -108,7 +110,7 @@ def test_all_reference_scenes_load():
     comma matrices, legacy refs)."""
     import glob
 
-    import liverrenderer_tpu as lr
+    import liverrenderer as lr
     xmls = sorted(glob.glob("/root/reference/scenes/*/mitsuba3/scene.xml"))
     assert len(xmls) >= 7
     for xml in xmls:
@@ -122,8 +124,8 @@ def test_sss_scene_loads_and_renders():
     fitted soap substitute (its soap_fine.obj is stripped from the
     checkout, .MISSING_LARGE_BLOBS:24) and renders finite through the
     full VAE subsurface path end-to-end."""
-    import liverrenderer_tpu as lr
-    from liverrenderer_tpu.pipeline.evaluate import _load_scene
+    import liverrenderer as lr
+    from liverrenderer.pipeline.evaluate import _load_scene
 
     xml = "/root/reference/scenes/SphereLiverPoint/sss/scene.xml"
     scene = _load_scene(xml, {"substitute": "soap"}, 24, 14, 2)
@@ -141,7 +143,7 @@ def test_all_reference_scenes_render_finite():
     load-only test misses)."""
     import glob
 
-    import liverrenderer_tpu as lr
+    import liverrenderer as lr
     xmls = sorted(glob.glob("/root/reference/scenes/*/mitsuba3/scene.xml"))
     for xml in xmls:
         scene = lr.load_file(xml, res_width=12, res_height=8, spp=2,

@@ -4,7 +4,7 @@ src/bsdfs/{polarizer,retarder,circular}.cpp, mueller.h)."""
 import numpy as np
 import pytest
 
-import liverrenderer_tpu as lr
+import liverrenderer as lr
 
 
 def _stack_scene(elements, radiance=1.0, max_depth=8):
@@ -155,7 +155,7 @@ def test_stokes_s0_matches_path_with_area_light():
         },
     }
     sc_st = lr.load_dict(d)
-    from liverrenderer_tpu.integrators.stokes import render_stokes
+    from liverrenderer.integrators.stokes import render_stokes
     S = render_stokes(sc_st, spp=196, seed=0)          # (h, w, 4, 3)
     d["integrator"] = {"type": "path", "max_depth": 3}
     sc_pt = lr.load_dict(d)

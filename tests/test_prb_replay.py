@@ -9,8 +9,8 @@ gradients must agree to fp tolerance, not just in distribution.
 import jax.numpy as jnp
 import numpy as np
 
-import liverrenderer_tpu as lr
-from liverrenderer_tpu.scene.builder import load_dict
+import liverrenderer as lr
+from liverrenderer.scene.builder import load_dict
 
 
 def _slab_scene(sigma_t=0.6, albedo=0.0, rfilter="box", res=4):
@@ -40,7 +40,7 @@ def _loss(img):
 
 
 def test_replay_applicable_detection():
-    from liverrenderer_tpu.integrators.prb_replay import replay_applicable
+    from liverrenderer.integrators.prb_replay import replay_applicable
     scene = _slab_scene()
     assert replay_applicable(scene, {"media.params": scene.media.params}, 32)
     # sensor params fall back to the scan adjoint
@@ -84,7 +84,7 @@ def test_replay_applicable_tent_and_large_films():
     """Round-3 coverage: the reference's RBIntegrator works at any film
     size/filter (common.py:625-783) — tent filters and 1080p-class films
     must route to the replay adjoint (tiled schedule), not the 6x scan."""
-    from liverrenderer_tpu.integrators.prb_replay import replay_applicable
+    from liverrenderer.integrators.prb_replay import replay_applicable
     scene = _slab_scene(rfilter="tent")
     assert replay_applicable(scene, {"media.params": scene.media.params}, 32)
     big = scene.replace(film_w=1920, film_h=1080)
@@ -113,7 +113,7 @@ def test_replay_tiled_schedule_matches_single_walk(monkeypatch):
     """Forcing the tiled (tile x spp-chunk) schedule on a tiny scene must
     reproduce the single-walk gradients — the counter RNG walks identical
     paths under any partition of the sample budget."""
-    from liverrenderer_tpu.integrators import prb_replay, regen
+    from liverrenderer.integrators import prb_replay, regen
     scene = _slab_scene(sigma_t=1.2, albedo=0.7, res=8)
     params = {"media.params": scene.media.params}
     _, g_one, img_one = lr.render_grad(scene, params, _loss, spp=16, seed=3,
@@ -165,7 +165,7 @@ def test_replay_path_family_fd():
     (path.cpp:194-345 + RBIntegrator semantics).  FD check on emitter
     radiance and texture albedo with the SAME seed (correlated FD — the
     counter RNG walks identical paths, so agreement is fp-tight)."""
-    from liverrenderer_tpu.integrators.prb_replay import replay_applicable
+    from liverrenderer.integrators.prb_replay import replay_applicable
 
     d = lr.cornell_box()
     d["integrator"] = {"type": "path", "max_depth": 4}

@@ -7,7 +7,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import liverrenderer_tpu as lr
+import liverrenderer as lr
 from tests.test_bsdf_fixes import WI, _bsdf_chi2, _plane_scene
 
 
@@ -92,7 +92,7 @@ def test_principled_anisotropy_skews_pdf():
     (ax != ay): the pdf at an off-specular azimuth in x must differ from
     the same offset in y (an energy-mean image test can't see this —
     anisotropy only redistributes)."""
-    from liverrenderer_tpu.bsdf.dispatch import bsdf_eval_pdf
+    from liverrenderer.bsdf.dispatch import bsdf_eval_pdf
     from tests.test_bsdf_fixes import _make_si
     wi = jnp.asarray([0.0, 0.0, 1.0], jnp.float32)
     # mirror direction is +z; probe equal polar offsets in x and y
@@ -114,7 +114,7 @@ def test_principled_sheen_grazing_eval():
     """Sheen is a grazing-angle lobe: check it directly in eval at a
     grazing outgoing direction (render means barely move at normal
     incidence, so the image test above can't see it)."""
-    from liverrenderer_tpu.bsdf.dispatch import bsdf_eval_pdf
+    from liverrenderer.bsdf.dispatch import bsdf_eval_pdf
     from tests.test_bsdf_fixes import _make_si
     base = {"type": "principled", "roughness": 0.4,
             "base_color": {"type": "rgb", "value": [0.5, 0.5, 0.5]}}

@@ -11,11 +11,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import liverrenderer_tpu as lr
-from liverrenderer_tpu.integrators.projective import (
+import liverrenderer as lr
+from liverrenderer.integrators.projective import (
     boundary_gradient, edge_table, indirect_boundary_gradient,
     project_to_film)
-from liverrenderer_tpu.scene.builder import load_dict
+from liverrenderer.scene.builder import load_dict
 
 
 def _occluder_scene(res=24):
@@ -60,7 +60,7 @@ def test_project_to_film_roundtrip():
     """project_to_film inverts the sensor's film->ray map: a ray traced
     from film position q projects back to q at any t>0."""
     scene = _occluder_scene(res=16)
-    from liverrenderer_tpu.sensor.perspective import sample_ray
+    from liverrenderer.sensor.perspective import sample_ray
     q = jnp.array([[3.25, 7.5], [0.5, 0.5], [15.0, 12.0]])
     ray = sample_ray(scene, q)
     p = ray.o + 1.7 * ray.d
@@ -172,7 +172,7 @@ def test_indirect_boundary_zero_when_directly_visible_only():
     term must be near zero — the boundary is fully accounted for by the
     primary film-space term, and double counting would break the
     FD match of test_occluder_translation_gradient_vs_fd."""
-    from liverrenderer_tpu.integrators.projective import \
+    from liverrenderer.integrators.projective import \
         indirect_boundary_gradient
     scene = _occluder_scene(res=16)
     delta = jnp.ones((16, 16, 3)) / (16 * 16 * 3)
@@ -219,8 +219,8 @@ def test_grid_distr_importance_sampling():
     separable function with a mass-matched grid reproduces its integral,
     and empirical cell frequencies track the mass."""
     import jax.numpy as jnp
-    from liverrenderer_tpu.core.rng import make_sampler
-    from liverrenderer_tpu.integrators.guiding import (grid_cell_of,
+    from liverrenderer.core.rng import make_sampler
+    from liverrenderer.integrators.guiding import (grid_cell_of,
                                                        grid_from_mass,
                                                        grid_sample)
     res = (4, 4, 4)
@@ -247,7 +247,7 @@ def test_edge_guided_weights_defensive_mixture():
     """Pilot mass concentrates the distribution but every silhouette edge
     keeps nonzero probability (unbiasedness)."""
     import jax.numpy as jnp
-    from liverrenderer_tpu.integrators.guiding import edge_guided_weights
+    from liverrenderer.integrators.guiding import edge_guided_weights
     base = jnp.array([1.0, 1.0, 1.0, 0.0])      # edge 3 not a silhouette
     mass = jnp.array([5.0, 5.0])
     e_idx = jnp.array([1, 1])
@@ -263,7 +263,7 @@ def test_octree_guiding_distribution():
     """OcSpaceDistr (ad/guiding.py:141-568 analog): unbiased importance
     sampling of U^3 with adaptive refinement around pilot mass."""
     import jax.numpy as jnp
-    from liverrenderer_tpu.integrators.guiding import octree_from_samples
+    from liverrenderer.integrators.guiding import octree_from_samples
 
     rng = np.random.default_rng(3)
     center = np.array([0.2, 0.3, 0.7])
@@ -290,7 +290,7 @@ def test_octree_guided_indirect_matches_uniform():
     """Octree-guided indirect boundary gradients estimate the same
     integral as the uniform sampler (different variance, same mean)."""
     import jax.numpy as jnp
-    from liverrenderer_tpu.integrators.projective import (
+    from liverrenderer.integrators.projective import (
         indirect_boundary_gradient)
 
     scene = _mirror_scene()

@@ -2,10 +2,10 @@
 must complete the exact sample budget and agree with the fixed wavefront."""
 import numpy as np
 
-import liverrenderer_tpu as lr
-from liverrenderer_tpu import film as fm
-from liverrenderer_tpu.integrators import regen
-from liverrenderer_tpu.integrators.common import _render_jit
+import liverrenderer as lr
+from liverrenderer import film as fm
+from liverrenderer.integrators import regen
+from liverrenderer.integrators.common import _render_jit
 
 
 def _fog_scene(w=24):
@@ -75,8 +75,8 @@ def test_tiled_film_matches_untiled(monkeypatch):
     the single-tile render."""
     import numpy as np
 
-    import liverrenderer_tpu as lr
-    from liverrenderer_tpu.integrators import regen
+    import liverrenderer as lr
+    from liverrenderer.integrators import regen
 
     d = lr.cornell_box()
     d["integrator"] = {"type": "volpath", "max_depth": 3}
@@ -98,10 +98,10 @@ def test_tent_filter_regen_matches_fixed():
     wavefront (GlissonCapsule/Parenchyma rfilter config)."""
     import numpy as np
 
-    import liverrenderer_tpu as lr
-    from liverrenderer_tpu.integrators import regen
-    from liverrenderer_tpu.integrators.common import _render_jit
-    from liverrenderer_tpu import film as film_mod
+    import liverrenderer as lr
+    from liverrenderer.integrators import regen
+    from liverrenderer.integrators.common import _render_jit
+    from liverrenderer import film as film_mod
 
     d = lr.cornell_box()
     d["integrator"] = {"type": "volpath", "max_depth": 3}
@@ -117,13 +117,13 @@ def test_tent_filter_regen_matches_fixed():
 
 
 def test_host_schedule_matches_device(monkeypatch):
-    """The host-driven (tile, spp-chunk) scheduler (watchdog-safe path for
+    """The host-driven (tile, spp-chunk) scheduler (bounded-execution path for
     big films / budgets) reproduces the one-shot device render exactly —
     same counter RNG per sample id regardless of partitioning."""
     import numpy as np
 
-    import liverrenderer_tpu as lr
-    from liverrenderer_tpu.integrators import regen
+    import liverrenderer as lr
+    from liverrenderer.integrators import regen
 
     d = lr.cornell_box()
     d["integrator"] = {"type": "volpath", "max_depth": 3}
@@ -168,8 +168,8 @@ def test_rate_cached_schedule_matches_probed():
     agree up to float summation order."""
     import numpy as np
 
-    import liverrenderer_tpu as lr
-    from liverrenderer_tpu.integrators import regen
+    import liverrenderer as lr
+    from liverrenderer.integrators import regen
 
     d = lr.cornell_box()
     d["integrator"] = {"type": "path", "max_depth": 4}

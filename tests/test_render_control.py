@@ -4,8 +4,8 @@ Integrator::cancel/should_stop/m_timeout semantics (integrator.h:290-302)
 honored between the host scheduler's device executions."""
 import numpy as np
 
-import liverrenderer_tpu as lr
-from liverrenderer_tpu.integrators import regen
+import liverrenderer as lr
+from liverrenderer.integrators import regen
 
 
 def _scene():

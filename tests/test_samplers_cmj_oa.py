@@ -8,7 +8,7 @@ Structural tests that DISTINGUISH the patterns from plain stratified
 import numpy as np
 import jax.numpy as jnp
 
-from liverrenderer_tpu.core.rng import make_sampler, _kensler_permute
+from liverrenderer.core.rng import make_sampler, _kensler_permute
 
 
 def _pixel_samples_2d(kind, spp, pix=0, seed=0, dim_calls=1):

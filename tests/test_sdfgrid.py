@@ -2,7 +2,7 @@
 src/shapes/sdfgrid.cpp)."""
 import numpy as np
 
-import liverrenderer_tpu as lr
+import liverrenderer as lr
 
 
 def _sphere_sdf(res=32, r=0.3):
@@ -43,8 +43,8 @@ def test_sdf_sphere_silhouette():
 
 def test_sdf_normals_via_intersect():
     import jax.numpy as jnp
-    from liverrenderer_tpu.accel.intersect import ray_intersect
-    from liverrenderer_tpu.core.types import Ray
+    from liverrenderer.accel.intersect import ray_intersect
+    from liverrenderer.core.types import Ray
 
     scene = _scene(_sphere_sdf(48))
     ray = Ray(o=jnp.array([[0.5, 0.5, 2.5]]),
@@ -61,8 +61,8 @@ def test_sdf_normals_via_intersect():
 def test_sdf_casts_shadow():
     """ray_test sees SDF occluders (shadow rays in NEE)."""
     import jax.numpy as jnp
-    from liverrenderer_tpu.accel.intersect import ray_test
-    from liverrenderer_tpu.core.types import Ray
+    from liverrenderer.accel.intersect import ray_test
+    from liverrenderer.core.types import Ray
 
     scene = _scene(_sphere_sdf())
     hit = ray_test(scene, Ray(o=jnp.array([[0.5, 0.5, 2.5]]),

@@ -2,7 +2,7 @@
 radiancemeter,irradiancemeter,batch}.cpp)."""
 import numpy as np
 
-import liverrenderer_tpu as lr
+import liverrenderer as lr
 
 
 def _env_only(sensor, radiance=1.0, extra=None):

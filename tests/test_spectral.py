@@ -11,8 +11,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-import liverrenderer_tpu as lr
-from liverrenderer_tpu.core import spectrum as S
+import liverrenderer as lr
+from liverrenderer.core import spectrum as S
 
 
 def _cornell(variant=None, w=16):
@@ -239,8 +239,8 @@ def test_spectral_replay_matches_scan_adjoint():
     """Round 5: the replay adjoint covers SPECTRAL scenes (packet-width
     path pool + CIE cotangent conversion).  Its gradients must agree
     with the scan adjoint on the same spectral fog scene."""
-    from liverrenderer_tpu.integrators import prb_replay
-    from liverrenderer_tpu.integrators.prb import _render_grad_scan
+    from liverrenderer.integrators import prb_replay
+    from liverrenderer.integrators.prb import _render_grad_scan
 
     scene = _fog_cornell("spectral", w=8)
     params = {"media.params": scene.media.params}

@@ -2,9 +2,9 @@
 import jax.numpy as jnp
 import numpy as np
 
-from liverrenderer_tpu.core.quad import (composite_simpson, gauss_legendre,
+from liverrenderer.core.quad import (composite_simpson, gauss_legendre,
                                          integrate)
-from liverrenderer_tpu.core.spline import eval_1d, integrate_1d, sample_1d
+from liverrenderer.core.spline import eval_1d, integrate_1d, sample_1d
 
 
 def test_spline_interpolates_nodes():

@@ -10,9 +10,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import liverrenderer_tpu as lr
-from liverrenderer_tpu.ssub import vae
-from liverrenderer_tpu.ssub.poly import (eval_poly, eval_poly_grad,
+import liverrenderer as lr
+from liverrenderer.ssub import vae
+from liverrenderer.ssub.poly import (eval_poly, eval_poly_grad,
                                          fit_polynomials, fit_scale,
                                          kernel_eps, onb_duff, rotate_poly)
 
@@ -67,7 +67,7 @@ def test_fit_sphere_polynomial(np_rng):
     """Fitted implicit poly around sphere vertices: gradient direction at
     the vertex must match the outward normal; value ~ 0 on the surface."""
     verts, faces = _uv_sphere()
-    from liverrenderer_tpu.ssub.preprocess import fit_shape_polys
+    from liverrenderer.ssub.preprocess import fit_shape_polys
     sig = np.array([2.0, 2.0, 2.0])
     alb = np.array([0.9, 0.9, 0.9])
     poly = fit_shape_polys(verts, faces, sig, alb, 0.0)

@@ -6,7 +6,7 @@ import zlib
 
 import numpy as np
 
-from liverrenderer_tpu.io.stream import (FileResolver, FileStream,
+from liverrenderer.io.stream import (FileResolver, FileStream,
                                          MemoryMappedFile, MemoryStream,
                                          Stream, ZStream)
 
@@ -85,7 +85,7 @@ def test_file_resolver(tmp_path):
 def test_serialized_mesh_through_streams(tmp_path):
     """Write a 2-mesh v4 serialized container and read shape 1 back
     through the mmap+ZStream path (serialized.cpp container layout)."""
-    from liverrenderer_tpu.scene.meshio import load_mesh
+    from liverrenderer.scene.meshio import load_mesh
 
     def mesh_blob(name, verts, faces, uvs=None):
         ms = MemoryStream()

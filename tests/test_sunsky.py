@@ -15,7 +15,7 @@ against INDEPENDENT published sky models/quantities:
 """
 import numpy as np
 
-from liverrenderer_tpu.emitter.sunsky import preetham_envmap, sun_direction
+from liverrenderer.emitter.sunsky import preetham_envmap, sun_direction
 
 LUM = np.array([0.212671, 0.715160, 0.072169])
 

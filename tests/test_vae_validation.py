@@ -26,7 +26,7 @@ import pytest
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "tools"))
 
-from liverrenderer_tpu.ssub import vae  # noqa: E402
+from liverrenderer.ssub import vae  # noqa: E402
 
 
 @pytest.mark.skipif(not vae.model_available(),
@@ -37,7 +37,7 @@ from liverrenderer_tpu.ssub import vae  # noqa: E402
 def test_vae_matches_ground_truth_walk(sigma_t, albedo, eta):
     from vae_validate import run_point
 
-    # CPU n=2048 keeps the suite fast; the 32k TPU runs that calibrated
+    # CPU n=2048 keeps the suite fast; the 32k-walker runs that calibrated
     # these bounds sit in results/vae_validation_r5.json.  Monte-Carlo
     # s.e. of the absorb rate at n=2048 is ~0.011, so the bound is
     # 0.03 (parity) + 3 s.e.
@@ -60,7 +60,7 @@ def test_vae_matches_ground_truth_walk(sigma_t, albedo, eta):
                     reason="reference VAE weights not present")
 def test_vae_anisotropic_point_documented_band():
     """g=0.5: the exit distribution matches to ~10% but the absorption
-    head under-predicts by ~0.14 (32k-walker TPU calibration) — a model
+    head under-predicts by ~0.14 (32k-walker calibration) — a model
     limitation bounded here so a further regression still fails."""
     from vae_validate import run_point
 
@@ -77,11 +77,11 @@ def test_vae_exits_project_onto_surface():
     sphere) — the projectPointsToSurface contract."""
     import jax.numpy as jnp
 
-    import liverrenderer_tpu as lr
-    from liverrenderer_tpu.accel.intersect import ray_intersect
-    from liverrenderer_tpu.core.rng import make_sampler
-    from liverrenderer_tpu.core.types import Ray
-    from liverrenderer_tpu.ssub.event import subsurface_event
+    import liverrenderer as lr
+    from liverrenderer.accel.intersect import ray_intersect
+    from liverrenderer.core.rng import make_sampler
+    from liverrenderer.core.types import Ray
+    from liverrenderer.ssub.event import subsurface_event
     from vae_validate import uv_sphere
 
     n = 1024
@@ -141,12 +141,12 @@ def test_sss_object_radiance_bracket():
     path tracing (dielectric boundary + real interior medium — the
     transport the VAE imitates), (b) the learned vaescatter BSSRDF, and
     (c) the classical dipole.  The vaescatter render must sit near the
-    brute-force estimate and strictly closer than the dipole (TPU
-    calibration at 64^2/64spp: vae/volpath = 1.22, dipole/volpath = 3.2,
+    brute-force estimate and strictly closer than the dipole
+    (calibration at 64^2/64spp: vae/volpath = 1.22, dipole/volpath = 3.2,
     results/sss_bracket.json)."""
     import jax.numpy as jnp
 
-    import liverrenderer_tpu as lr
+    import liverrenderer as lr
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))), "tools"))
     from sss_bracket import scene_dict

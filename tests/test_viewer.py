@@ -1,8 +1,8 @@
 """Viewer / denoiser tests (realtime.hpp + Denoise.py capability analogs)."""
 import numpy as np
 
-import liverrenderer_tpu as lr
-from liverrenderer_tpu.viewer import denoise, run_viewer
+import liverrenderer as lr
+from liverrenderer.viewer import denoise, run_viewer
 
 
 def _scene(w=48):
@@ -51,9 +51,9 @@ def test_atrous_denoiser_beats_bilateral():
     (both guided by the same albedo/normal AOVs)."""
     import numpy as np
 
-    import liverrenderer_tpu as lr
-    from liverrenderer_tpu.denoise import atrous_denoise
-    from liverrenderer_tpu.viewer import denoise as bilateral
+    import liverrenderer as lr
+    from liverrenderer.denoise import atrous_denoise
+    from liverrenderer.viewer import denoise as bilateral
 
     d = lr.cornell_box()
     d["sensor"]["film"]["width"] = 48
@@ -61,7 +61,7 @@ def test_atrous_denoiser_beats_bilateral():
     d["sensor"]["film"]["rfilter"] = {"type": "box"}
     scene = lr.load_dict(d).replace(max_depth=4)
 
-    from liverrenderer_tpu.denoise import estimator_variance
+    from liverrenderer.denoise import estimator_variance
     noisy, var = estimator_variance(scene, 4, seed=0)
     noisy = np.asarray(noisy)
     ref = np.asarray(lr.render(scene, spp=256, seed=7))
@@ -91,7 +91,7 @@ def test_denoise_preserves_env_background():
     tap once collapsed whole env backgrounds to black."""
     import jax.numpy as jnp
     import numpy as np
-    from liverrenderer_tpu.denoise import atrous_denoise
+    from liverrenderer.denoise import atrous_denoise
 
     rng = np.random.default_rng(0)
     h = w = 32

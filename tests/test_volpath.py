@@ -7,10 +7,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import liverrenderer_tpu as lr
-from liverrenderer_tpu.core import rng
-from liverrenderer_tpu.media.dispatch import sample_interaction
-from liverrenderer_tpu.scene.builder import load_dict
+import liverrenderer as lr
+from liverrenderer.core import rng
+from liverrenderer.media.dispatch import sample_interaction
+from liverrenderer.scene.builder import load_dict
 
 
 def _fog_scene(albedo, sigma_t, g=None, max_depth=64, env=1.0):
@@ -208,8 +208,8 @@ def test_channel_stratification_exact_allocation():
     """The tracked RGB channel is stratified over each pixel's sample
     indices: spp=12 gives exactly 4 samples per channel per pixel
     (removes the channel-allocation variance of the one-hot estimator)."""
-    from liverrenderer_tpu.integrators.volpath import init_state
-    from liverrenderer_tpu.core.types import Ray as _Ray
+    from liverrenderer.integrators.volpath import init_state
+    from liverrenderer.core.types import Ray as _Ray
 
     d = {
         "type": "scene",

@@ -2,8 +2,8 @@
 import jax.numpy as jnp
 import numpy as np
 
-from liverrenderer_tpu.core.rng import make_sampler
-from liverrenderer_tpu.ssub.volpath3d import (flat_halfspace_coeffs,
+from liverrenderer.core.rng import make_sampler
+from liverrenderer.ssub.volpath3d import (flat_halfspace_coeffs,
                                               sample_paths)
 
 

@@ -12,7 +12,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import liverrenderer_tpu as lr
+import liverrenderer as lr
 
 
 def chroma_fog(res=32, integrator="volpathmis", max_depth=8,
@@ -34,7 +34,7 @@ def chroma_fog(res=32, integrator="volpathmis", max_depth=8,
 def test_routing():
     """Non-bio volpathmis scenes run the spectral-MIS module; bio media
     keep the one-hot channel scheme in volpath.py."""
-    from liverrenderer_tpu.integrators.volpath import _has_bio
+    from liverrenderer.integrators.volpath import _has_bio
     sc = chroma_fog(res=8)
     assert sc.integrator == "volpathmis"
     assert not _has_bio(sc)

@@ -8,7 +8,7 @@ sRGB->linear option, and PRB-style gradients.
 import jax.numpy as jnp
 import numpy as np
 
-import liverrenderer_tpu as lr
+import liverrenderer as lr
 
 C0 = 0.28209479177387814       # Y_0^0
 
@@ -86,7 +86,7 @@ def test_sh_directional_emission():
 
 def test_srgb_primitives_conversion():
     """srgb_primitives=True converts composited radiance to linear."""
-    from liverrenderer_tpu.core.spectrum import srgb_to_linear
+    from liverrenderer.core.spectrum import srgb_to_linear
     c0 = 0.5 / C0
     rows = _rows([[0, 0, 0]], 0.5)
     sh = np.full((1, 1, 3), c0, np.float32)

@@ -1,5 +1,5 @@
-"""Probe the lockstep-BVH intersector on TPU across mesh sizes (each in
-a subprocess — a kernel fault poisons the TPU client)."""
+"""Probe the lockstep-BVH intersector on the device across mesh sizes
+(each in a subprocess, so a device fault stays in one size)."""
 from __future__ import annotations
 
 import json
@@ -15,13 +15,14 @@ def child(subdiv: int):
     import time
 
     import jax
-    jax.config.update("jax_compilation_cache_dir", "/tmp/lr_tpu_jax_cache")
+    from liverrenderer.compile_cache import enable_compile_cache
+    enable_compile_cache()
     import jax.numpy as jnp
     import numpy as np
 
-    import liverrenderer_tpu as lr
-    from liverrenderer_tpu.accel.intersect import ray_intersect_preliminary
-    from liverrenderer_tpu.core.types import Ray
+    import liverrenderer as lr
+    from liverrenderer.accel.intersect import ray_intersect_preliminary
+    from liverrenderer.core.types import Ray
     from bench_stream import icosphere, make_rays
 
     v, f = icosphere(subdiv)

@@ -7,7 +7,7 @@ This tool fits the best-matching rounded box (scale / rotation /
 translation, mesh baked in world space — the scene's to_world is
 identity) to the golden's object silhouette by maximizing mask IoU
 against a depth render, and writes the parameters to
-`liverrenderer_tpu/pipeline/soap_substitute.json` for
+`liverrenderer/pipeline/soap_substitute.json` for
 pipeline/evaluate.py's SSS row.
 
     python tools/fit_soap.py
@@ -23,11 +23,11 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 import numpy as np
 
 GOLDEN = "/root/reference/scenes/SphereLiverPoint/sss/scene.xml"
-OUT = os.path.join(os.path.dirname(__file__), "..", "liverrenderer_tpu",
+OUT = os.path.join(os.path.dirname(__file__), "..", "liverrenderer",
                    "pipeline", "soap_substitute.json")
 
 
-from liverrenderer_tpu.pipeline.substitute import (rounded_box_mesh,
+from liverrenderer.pipeline.substitute import (rounded_box_mesh,
                                                    transformed)
 
 
@@ -37,11 +37,11 @@ def main():
     import jax
     jax.config.update("jax_platforms", "cpu")
     import jax.numpy as jnp
-    import liverrenderer_tpu as lr
-    from liverrenderer_tpu.integrators.aux import render_depth
-    from liverrenderer_tpu.scene.builder import load_dict
-    from liverrenderer_tpu.scene.xml import parse_xml
-    from liverrenderer_tpu.sensor.perspective import sample_ray
+    import liverrenderer as lr
+    from liverrenderer.integrators.aux import render_depth
+    from liverrenderer.scene.builder import load_dict
+    from liverrenderer.scene.xml import parse_xml
+    from liverrenderer.sensor.perspective import sample_ray
 
     W, H = 128, 72
     g = lr.read_image(GOLDEN.replace("scene.xml", "scene.exr"))
@@ -152,11 +152,11 @@ def depth_scan():
     import jax
     jax.config.update("jax_platforms", "cpu")
     import jax.numpy as jnp
-    import liverrenderer_tpu as lr
-    from liverrenderer_tpu.pipeline.substitute import soap_mesh
-    from liverrenderer_tpu.scene.builder import load_dict
-    from liverrenderer_tpu.scene.xml import parse_xml
-    from liverrenderer_tpu.sensor.perspective import sample_ray
+    import liverrenderer as lr
+    from liverrenderer.pipeline.substitute import soap_mesh
+    from liverrenderer.scene.builder import load_dict
+    from liverrenderer.scene.xml import parse_xml
+    from liverrenderer.sensor.perspective import sample_ray
 
     with open(OUT) as f:
         fit = json.load(f)
@@ -195,7 +195,7 @@ def depth_scan():
         p = p0.copy()
         p[0:3] *= scale
         p[6:9] = ro + (t0 * scale) * rd + perp * scale
-        from liverrenderer_tpu.pipeline.substitute import (rounded_box_mesh,
+        from liverrenderer.pipeline.substitute import (rounded_box_mesh,
                                                            transformed)
         v, f2 = rounded_box_mesh(fit["subdiv"], fit["round_r"])
         dd = dict(sd_base)

@@ -10,7 +10,7 @@ tools/ssim_curve.py) against each golden, at the same downsample.
     python tools/golden_envelope.py [--ds 8]
         -> results/golden_envelope_r5.json
 
-Round-5 findings (v5e, ds8):
+Round-5 findings (ds8):
   GlissonCapsule — ours-vs-M0.6 SSIM 0.904 / RMSE 0.0144 BEATS the
   reference's own M3CPU-vs-M0.6 agreement (0.8835 / 0.0281): the
   envelope is cleared.  Seed spread of our curve at 16k spp: 0.0012
@@ -62,9 +62,9 @@ def main():
     a = ap.parse_args()
     import jax
     jax.config.update("jax_platforms", "cpu")
-    import liverrenderer_tpu as lr
-    from liverrenderer_tpu.pipeline.results import rmse, ssim
-    from liverrenderer_tpu.tonemap import tonemap
+    import liverrenderer as lr
+    from liverrenderer.pipeline.results import rmse, ssim
+    from liverrenderer.tonemap import tonemap
 
     ds = a.ds
 

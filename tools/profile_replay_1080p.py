@@ -1,8 +1,8 @@
 """Profile the 1080p fwd+bwd replay schedule (VERDICT r4 #8).
 
-In ONE process on the real chip: per-partition wall times of the tiled
-replay's stored-forward and backward-walk executions on Liver-SingleMesh
-1920x1080@16spp, against the same-process primal — so the 2.148x cost
+In ONE process on the GPU: per-partition wall times of the tiled replay's
+stored-forward and backward-walk executions on the seeded liver stand-in
+at 1920x1080@16spp, against the same-process primal — so the fwd+bwd cost
 ratio decomposes into (stored-forward overhead) + (walk cost) +
 (scheduling overhead).
 
@@ -11,23 +11,25 @@ ratio decomposes into (stored-forward overhead) + (walk cost) +
 from __future__ import annotations
 
 import json
+import os
 import sys
 import time
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 
-jax.config.update("jax_compilation_cache_dir", "/tmp/lr_tpu_jax_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 2.0)
+from liverrenderer.compile_cache import enable_compile_cache  # noqa: E402
 
-import liverrenderer_tpu as lr  # noqa: E402
-from liverrenderer_tpu.integrators import prb_replay as pr  # noqa: E402
-from liverrenderer_tpu.integrators import regen as regen_mod  # noqa: E402
+enable_compile_cache()
 
-SCENE = "/root/reference/scenes/Liver-SingleMesh/mitsuba3/scene.xml"
+import liverrenderer as lr  # noqa: E402
+from liverrenderer.integrators import prb_replay as pr  # noqa: E402
+from liverrenderer.integrators import regen as regen_mod  # noqa: E402
+from liverrenderer.scene.synthetic import liver_standin  # noqa: E402
+
 SPP = 16
 
 
@@ -45,7 +47,7 @@ def timed(fn, *args):
 
 
 def main():
-    sc = lr.load_file(SCENE, res_width=1920, res_height=1080, spp=SPP)
+    sc = lr.load_dict(liver_standin(seed=0, spp=SPP))
     n_pix = sc.film_w * sc.film_h
     tile_pix = min(regen_mod.TILE_PIX, n_pix)
     n_tiles = (n_pix + tile_pix - 1) // tile_pix

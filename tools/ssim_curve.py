@@ -24,17 +24,18 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax  # noqa: E402
 
-jax.config.update("jax_compilation_cache_dir", "/tmp/lr_tpu_jax_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 2.0)
+from liverrenderer.compile_cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 SCENES_DIR = "/root/reference/scenes"
 
 
 def run_scene(name, ds, chunk, n_chunks, variant=None, seed_base=100):
-    import liverrenderer_tpu as lr
-    from liverrenderer_tpu.pipeline.evaluate import CONFIGS, _load_scene
-    from liverrenderer_tpu.pipeline.results import rmse, ssim
-    from liverrenderer_tpu.tonemap import tonemap
+    import liverrenderer as lr
+    from liverrenderer.pipeline.evaluate import CONFIGS, _load_scene
+    from liverrenderer.pipeline.results import rmse, ssim
+    from liverrenderer.tonemap import tonemap
 
     xml, golden, mask, opts = CONFIGS[name]
     opts = dict(opts)

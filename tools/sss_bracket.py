@@ -36,7 +36,7 @@ ETA = 1.3
 
 
 def scene_dict(mode, res, verts, faces):
-    import liverrenderer_tpu as lr
+    import liverrenderer as lr
     d = {
         "type": "scene",
         "integrator": ({"type": "volpath", "max_depth": 256}
@@ -91,10 +91,10 @@ def main():
     import jax
     if a.cpu:
         jax.config.update("jax_platforms", "cpu")
-    jax.config.update("jax_compilation_cache_dir", "/tmp/lr_tpu_jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 2.0)
+    from liverrenderer.compile_cache import enable_compile_cache
+    enable_compile_cache()
 
-    import liverrenderer_tpu as lr
+    import liverrenderer as lr
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from vae_validate import uv_sphere
     verts, faces = uv_sphere()

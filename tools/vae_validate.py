@@ -66,12 +66,12 @@ def sphere_coeffs():
 def run_point(sigma_t, albedo, g, eta, n=8192, seed=0):
     import jax.numpy as jnp
 
-    import liverrenderer_tpu as lr
-    from liverrenderer_tpu.accel.intersect import ray_intersect
-    from liverrenderer_tpu.core.rng import make_sampler
-    from liverrenderer_tpu.core.types import Ray
-    from liverrenderer_tpu.ssub import volpath3d
-    from liverrenderer_tpu.ssub.event import subsurface_event
+    import liverrenderer as lr
+    from liverrenderer.accel.intersect import ray_intersect
+    from liverrenderer.core.rng import make_sampler
+    from liverrenderer.core.types import Ray
+    from liverrenderer.ssub import volpath3d
+    from liverrenderer.ssub.event import subsurface_event
 
     verts, faces = uv_sphere()
     d = {
@@ -168,7 +168,8 @@ def main():
     import jax
     if a.cpu:
         jax.config.update("jax_platforms", "cpu")
-    jax.config.update("jax_compilation_cache_dir", "/tmp/lr_tpu_jax_cache")
+    from liverrenderer.compile_cache import enable_compile_cache
+    enable_compile_cache()
     rows = []
     for st, al, g, eta in GRID:
         row = run_point(st, al, g, eta, n=a.n)
